@@ -3,8 +3,7 @@
 Measures epochs of the learning-config host work — view-window sampling +
 rotational homography augmentation per sample (ScenesDataSet), plus the
 outlier injector applied to each sample as epoch_train does — with
-num_workers = 0 (in-process) vs a fork pool. Numbers go to BENCHLOG.md
-(VERDICT round 1, item 7).
+num_workers = 0 (in-process) vs a fork pool. Host-only: no device work.
 
 Run: JAX_PLATFORMS=cpu timeout 1800 python scripts/loader_bench.py
 """
@@ -20,9 +19,9 @@ sys.path.insert(0, str(_REPO))
 
 import numpy as np
 
-from gasfm_tpu.data.dataset import SceneLoader, ScenesDataSet
-from gasfm_tpu.data.outliers import inject_outliers
-from gasfm_tpu.data.synthetic import generate_synthetic_scene
+from gasfm.data.dataset import SceneLoader, ScenesDataSet
+from gasfm.data.outliers import inject_outliers
+from gasfm.data.synthetic import generate_synthetic_scene
 
 
 def main():

@@ -5,18 +5,18 @@ CVPR'24 dataset scenes) are mounted, produces the reference-vs-repo
 comparison: load a torch-serialized reference checkpoint
 (``model_epoch*.pt`` / ``best_model.pt`` — plain ``state_dict`` saves,
 reference code/train.py:656,673,679), convert it with
-``gasfm_tpu.models.convert``, verify it drops losslessly into the flax
+``gasfm.models.convert``, verify it drops losslessly into the JAX
 model, and run the evaluation battery over the requested scenes.
 
 Usage:
   # structural parity only (no datasets needed; synthetic scene):
-  python scripts/reference_parity.py --conf gasfm_tpu/confs/gasfm/optim_euc_gasfm.conf \
+  python scripts/reference_parity.py --conf gasfm/confs/gasfm/optim_euc_gasfm.conf \
       --checkpoint /path/to/model_epoch000500.pt --synthetic
 
   # full evaluation table on real scenes (reference .npz format under
   # $DATASETS_PATH, same layout the reference uses):
   DATASETS_PATH=/datasets python scripts/reference_parity.py \
-      --conf gasfm_tpu/confs/gasfm/optim_euc_gasfm.conf \
+      --conf gasfm/confs/gasfm/optim_euc_gasfm.conf \
       --checkpoint /path/to/best_model.pt --scenes AlcatrazCourtyard DoorLund
 
 The printed per-scene rows use the same metric battery as the reference's
@@ -46,14 +46,14 @@ def load_torch_state_dict(path: str):
 
 
 def convert_checkpoint(conf, checkpoint_path: str):
-    """torch .pt -> flax params, validated leaf-by-leaf against the model's
+    """torch .pt -> model params, validated leaf-by-leaf against the model's
     own init tree (every converted array must land on a matching shape)."""
     import jax
     import numpy as np
 
-    from gasfm_tpu.data.synthetic import generate_synthetic_scene
-    from gasfm_tpu.models import get_model
-    from gasfm_tpu.models.convert import convert_reference_state_dict
+    from gasfm.data.synthetic import generate_synthetic_scene
+    from gasfm.models import get_model
+    from gasfm.models.convert import convert_reference_state_dict
 
     model = get_model(conf)
     sd = load_torch_state_dict(checkpoint_path)
@@ -61,7 +61,7 @@ def convert_checkpoint(conf, checkpoint_path: str):
 
     data = generate_synthetic_scene(n_views=8, n_points=200, seed=0)
     scene = data.to_scene_graph()
-    template = jax.jit(model.init)(jax.random.PRNGKey(0), scene.graph)
+    template = model.init(jax.random.PRNGKey(0), scene.graph)
 
     flat_t = dict(
         ("/".join(str(getattr(k, "key", k)) for k in kp), leaf)
@@ -110,23 +110,21 @@ def main(argv=None):
     ap.add_argument("--bundle-adjustment", action="store_true")
     args = ap.parse_args(argv)
 
-    from gasfm_tpu.config import load_config
+    from gasfm.config import load_config
 
     conf = load_config(args.conf)
     model, params = convert_checkpoint(conf, args.checkpoint)
 
-    import pandas as pd
-
-    from gasfm_tpu.data.dataset import SceneLoader, ScenesDataSet
-    from gasfm_tpu.train.loop import TrainingSession, epoch_evaluation
-    from gasfm_tpu.utils.phases import Phases
+    from gasfm.data.dataset import SceneLoader, ScenesDataSet
+    from gasfm.train.loop import TrainingSession, epoch_evaluation
+    from gasfm.utils.phases import Phases
 
     if args.synthetic:
-        from gasfm_tpu.data.synthetic import generate_synthetic_scene
+        from gasfm.data.synthetic import generate_synthetic_scene
 
         scenes = [generate_synthetic_scene(n_views=10, n_points=500, seed=0)]
     elif args.scenes:
-        from gasfm_tpu.data.loaders import create_scene_data_from_list
+        from gasfm.data.loaders import create_scene_data_from_list
 
         scenes = create_scene_data_from_list(args.scenes, conf)
     else:
@@ -135,14 +133,12 @@ def main(argv=None):
     loader = SceneLoader(ScenesDataSet(scenes, return_all=True), batch_size=1,
                          prefetch=0)
     session = TrainingSession(conf, model)
-    table = epoch_evaluation(
+    # epoch_evaluation prints the per-scene table and its Mean row.
+    return epoch_evaluation(
         loader, session, params, conf, -1, Phases.OPTIMIZATION,
         bundle_adjustment=args.bundle_adjustment,
         crash_on_scene_exhausting_memory=True,
     )
-    with pd.option_context("display.width", 240, "display.max_columns", 60):
-        print(table)
-    return table
 
 
 if __name__ == "__main__":

@@ -1,12 +1,19 @@
-"""Capture a jax.profiler device trace of the flagship fwd+bwd step and
-aggregate per-op durations.
+"""Trace the flagship train step on the GPU and split its device time.
 
-Run on the real TPU:  timeout 1800 python scripts/trace_step.py
-Writes trace under /tmp/gasfm_trace and prints a duration-sorted op table.
+    python scripts/trace_step.py [--out DIR] [--steps N]
+
+Runs the trainer's own fused step (TrainingSession: forward, backward, Adam)
+of the 9-layer flagship on the bench scene (128 views x 8192 points,
+visibility 0.2, ~116k edges), traces ``--steps`` steady steps with
+jax.profiler into ``--out``, and prints the device's busy share of the
+window and its kernel time by kind, from the kernel names: scatter, gather,
+matmul and other. A gather that XLA fused into another kernel counts as
+that kernel, so the gather share is a lower bound.
 """
 
 from __future__ import annotations
 
+import argparse
 import glob
 import gzip
 import json
@@ -15,92 +22,99 @@ import sys
 import time
 from collections import defaultdict
 
-sys.path.insert(0, str(__import__("pathlib").Path(__file__).resolve().parents[1]))
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
-import jax.numpy as jnp
+KINDS = (
+    ("scatter", ("scatter",)),
+    ("gather", ("gather",)),
+    ("matmul", ("gemm", "cublas", "cutlass", "matmul", "dot")),
+)
 
 
-def main():
-    print("platform:", jax.devices()[0].platform, flush=True)
+def kind_of(name: str) -> str:
+    low = name.lower()
+    for kind, keys in KINDS:
+        if any(k in low for k in keys):
+            return kind
+    return "other"
 
-    from __graft_entry__ import _flagship_conf
-    from gasfm_tpu.data.synthetic import generate_synthetic_scene
-    from gasfm_tpu.losses import get_loss_func
-    from gasfm_tpu.models import get_model
 
-    conf = _flagship_conf(small=False)
-    model = get_model(conf)
-    loss_func = get_loss_func(conf)
-    data_s = generate_synthetic_scene(n_views=64, n_points=4096, visibility=0.2, seed=0)
-    scene = data_s.to_scene_graph()
-    jax.config.update("jax_compilation_cache_dir", str(__import__("pathlib").Path(__file__).resolve().parents[1] / ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    params = jax.jit(model.init)(jax.random.PRNGKey(0), scene.graph)
-    print("E_cap:", scene.graph.num_edges, "N_cap:", scene.graph.num_pts,
-          "M_cap:", scene.graph.num_cams, flush=True)
-
-    @jax.jit
-    def train_like(p, scene):
-        def loss_fn(q):
-            return loss_func(model.apply(q, scene.graph), scene)
-
-        g = jax.grad(loss_fn)(p)
-        return jax.tree_util.tree_map(lambda a, b: a - 1e-9 * b, p, g)
-
-    t0 = time.perf_counter()
-    p1 = train_like(params, scene)
-    jax.block_until_ready(p1)
-    print(f"compile+first run: {time.perf_counter()-t0:.1f}s", flush=True)
-    for _ in range(2):
-        jax.block_until_ready(train_like(params, scene))
-
-    logdir = "/tmp/gasfm_trace"
-    os.system(f"rm -rf {logdir}")
-    with jax.profiler.trace(logdir):
-        for _ in range(3):
-            jax.block_until_ready(train_like(params, scene))
-    print("trace captured", flush=True)
-
-    files = glob.glob(f"{logdir}/**/*.trace.json.gz", recursive=True)
-    print("trace files:", files, flush=True)
-    if not files:
-        print("NO TRACE FILES — profiler unsupported on this backend?")
-        return
-
-    with gzip.open(files[0], "rt") as f:
+def device_events(trace_path: str):
+    """(name, start_us, dur_us) of the kernel events on GPU tracks."""
+    with gzip.open(trace_path, "rt") as f:
         trace = json.load(f)
-    events = trace.get("traceEvents", [])
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    gpu_pids = {e["pid"] for e in events
+                if e.get("ph") == "M" and e.get("name") == "process_name"
+                and "gpu" in str(e.get("args", {}).get("name", "")).lower()}
+    return [(e.get("name", ""), float(e["ts"]), float(e["dur"])) for e in events
+            if e.get("ph") == "X" and e.get("pid") in gpu_pids and "dur" in e]
 
-    # Identify device-track pids (TPU op events live on tracks whose process
-    # name mentions the device) and aggregate complete events by name.
-    pid_names = {}
-    for e in events:
-        if e.get("ph") == "M" and e.get("name") == "process_name":
-            pid_names[e["pid"]] = e["args"].get("name", "")
-    device_pids = {p for p, n in pid_names.items()
-                   if "TPU" in n or "/device" in n.lower() or "xla" in n.lower()}
-    print("process tracks:", sorted(pid_names.values()), flush=True)
 
-    agg = defaultdict(float)
-    cnt = defaultdict(int)
-    total = 0.0
-    for e in events:
-        if e.get("ph") != "X":
-            continue
-        if device_pids and e.get("pid") not in device_pids:
-            continue
-        name = e.get("name", "?")
-        dur = e.get("dur", 0) / 1e6  # us -> s
-        agg[name] += dur
-        cnt[name] += 1
-        total += dur
+def summarize(events, window_us: float) -> dict:
+    spans = sorted((s, s + d) for _, s, d in events)
+    busy, end = 0.0, None
+    for s, e in spans:
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    by_kind = defaultdict(float)
+    for name, _, d in events:
+        by_kind[kind_of(name)] += d
+    total = sum(by_kind.values())
+    return {"window_ms": window_us / 1e3, "busy_ms": busy / 1e3,
+            "idle_share": 1 - busy / window_us if window_us else float("nan"),
+            "kernel_ms": total / 1e3,
+            "share": {k: v / total for k, v in sorted(by_kind.items())} if total else {}}
 
-    rows = sorted(agg.items(), key=lambda kv: -kv[1])
-    print(f"\n{'op':70s} {'count':>6s} {'total_ms':>9s}")
-    for name, dur in rows[:60]:
-        print(f"{name[:70]:70s} {cnt[name]:6d} {dur*1e3/3:9.3f}")
-    print(f"\nTOTAL (all device events, per step): {total*1e3/3:.2f} ms over 3 steps")
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default="trace_out")
+    ap.add_argument("--steps", type=int, default=5)
+    args = ap.parse_args(argv)
+
+    import jax
+
+    from gasfm.config import load_config
+    from gasfm.data.loaders import create_scene_data
+    from gasfm.main import init_model
+    from gasfm.train.loop import TrainingSession
+    from gasfm.utils.compile_cache import configure_compile_cache
+
+    import chip_smoke
+
+    configure_compile_cache()
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        raise SystemExit(f"trace_step.py traces a GPU; JAX found {dev.platform!r}")
+    params = {**chip_smoke.FLAGSHIP,
+              **{f"dataset.synthetic.{k}": v for k, v in chip_smoke.BENCH_SCENE.items()}}
+    conf = load_config(os.path.join("synth", "optim_synth_gasfm.conf"),
+                       external_params=chip_smoke.overrides(params))
+    model, p, _ = init_model(conf)
+    session = TrainingSession(conf, model)
+    sg = session.bucketize(create_scene_data(conf))
+    opt = session.tx.init(p)
+    for _ in range(3):  # compile and warm up
+        p, opt, loss, _, _ = session.fused_step(p, opt, sg)
+    jax.block_until_ready(loss)
+
+    os.makedirs(args.out, exist_ok=True)
+    with jax.profiler.trace(args.out, create_perfetto_trace=True):
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            p, opt, loss, _, _ = session.fused_step(p, opt, sg)
+        jax.block_until_ready((p, loss))
+        window_us = (time.perf_counter() - t0) * 1e6
+    path = sorted(glob.glob(os.path.join(args.out, "**", "*.trace.json.gz"), recursive=True))[-1]
+    out = summarize(device_events(path), window_us)
+    out.update(device=dev.device_kind, steps=args.steps, edges=int(sg.graph.e_true),
+               step_ms=out["window_ms"] / args.steps, trace=path)
+    print(json.dumps(out, indent=1))
 
 
 if __name__ == "__main__":

@@ -5,16 +5,16 @@ solutions (the correctness contract of the reference's Ceres setup)."""
 import numpy as np
 import pytest
 
-from gasfm_tpu.ba import euc_ba, proj_ba
-from gasfm_tpu.ba.packing import order_cam_param_for_c, reorder_from_c_to_py
-from gasfm_tpu.data.synthetic import generate_synthetic_scene
-from gasfm_tpu.geometry.np_geo import (
+from gasfm.ba import euc_ba, proj_ba
+from gasfm.ba.packing import order_cam_param_for_c, reorder_from_c_to_py
+from gasfm.data.synthetic import generate_synthetic_scene
+from gasfm.geometry.np_geo import (
     M_to_xs,
     decompose_camera_matrix,
     reprojection_error_with_points,
     xs_valid_points,
 )
-from gasfm_tpu.geometry.triangulation import n_view_triangulation
+from gasfm.geometry.triangulation import n_view_triangulation
 
 
 def build_problem(seed=0, noise_px=0.0, n_views=8, n_points=60):

@@ -4,7 +4,7 @@ the Parameter3DPts bank (reference models/layers.py:47-57)."""
 import numpy as np
 import pytest
 
-from gasfm_tpu.ba import io as ba_io
+from gasfm.ba import io as ba_io
 
 
 @pytest.fixture()
@@ -49,7 +49,7 @@ def test_read_euc_gt_mat_files(mat_scene):
 def test_parameter_3d_pts():
     import jax
 
-    from gasfm_tpu.models.layers import Parameter3DPts
+    from gasfm.models.layers import Parameter3DPts
 
     m = Parameter3DPts(n_pts=11)
     params = m.init(jax.random.PRNGKey(0))

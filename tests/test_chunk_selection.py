@@ -1,13 +1,9 @@
-"""Per-graph edge-chunk selection (round-5): the chunk is a static property
-of each ViewGraph, picked automatically by the production bucketizer from
-the scene's mean window run (view_graph.choose_chunk), and graphs with
+"""Per-graph edge-chunk selection: the chunk is a static property of each
+ViewGraph, picked automatically by the production bucketizer from the
+scene's mean window run (view_graph.choose_chunk), and graphs with
 different chunks coexist in one process — one compiled program per
-(caps, chunk) key.
-
-Pins the selection rule to the BENCHLOG section 22-23 / round-5
-measurements: the dense bench scene (mean window run ~1800) runs fastest
-at 2048 (once the unpacked first-layer frontend sub-chunks), the
-power-law scene (~370) at 512.
+(caps, chunk) key. The dense bench scene (mean window run ~1800) gets 2048,
+the power-law scene (~370) 512.
 """
 
 from __future__ import annotations
@@ -15,13 +11,13 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from gasfm_tpu.config import ConfigFactory
-from gasfm_tpu.data.synthetic import generate_synthetic_scene
-from gasfm_tpu.graph.view_graph import WINDOW, choose_chunk
+from gasfm.config import ConfigFactory
+from gasfm.data.synthetic import generate_synthetic_scene
+from gasfm.graph.view_graph import WINDOW, choose_chunk
 
 
 def _bucketizer(n_edge_shards=1, **conf_puts):
-    from gasfm_tpu.train.loop import GraphBucketizer
+    from gasfm.train.loop import GraphBucketizer
 
     conf = ConfigFactory.parse_string("dataset { calibrated = true }")
     for k, v in conf_puts.items():
@@ -33,14 +29,11 @@ class TestChooseChunk:
     def test_rule_anchors(self, monkeypatch):
         monkeypatch.delenv("GASFM_CHUNK", raising=False)
         # Dense bench scene: 115,605 valid edges / 8,192 points -> mean
-        # window run ~1806 -> 2048 (round 5: +0.9% over 1024 measured at
-        # exactly this scene once the first-layer frontend sub-chunks).
+        # window run ~1806 -> 2048.
         assert choose_chunk(115605, 8192) == 2048
-        # Mid-density: run ~1250 -> 1024 (BENCHLOG section 22: +7% over
-        # 512 on dense scenes).
+        # Mid-density: run ~1250 -> 1024.
         assert choose_chunk(80000, 8192) == 1024
-        # Power-law scene: 70,465 / 24,576 -> run ~367 -> 512 (section 23:
-        # 2.42M vs 1.53M edges/s at 1024).
+        # Power-law scene: 70,465 / 24,576 -> run ~367 -> 512.
         assert choose_chunk(70465, 24576) == 512
         # Very sparse / tiny scenes -> 256.
         assert choose_chunk(100, 1024) == 256
@@ -51,7 +44,7 @@ class TestChooseChunk:
 
     def test_env_override_wins(self, monkeypatch):
         monkeypatch.setenv("GASFM_CHUNK", "512")
-        import gasfm_tpu.graph.view_graph as vg
+        import gasfm.graph.view_graph as vg
 
         # choose_chunk defers to the env-pinned process default.
         assert choose_chunk(115605, 8192) == vg.CHUNK
@@ -73,47 +66,8 @@ class TestBucketizerChunk:
         for sg in (sg_d, sg_s):
             g = sg.graph
             assert g.num_edges % g.chunk == 0
-            assert g.pt_segment_windows() is not None
             wb = np.asarray(g.pt_window).reshape(-1, g.chunk)
             assert (wb == wb[:, :1]).all(), "chunk spans one point window"
-
-    def test_auto_2048_capped_for_unpacked_confs(self, monkeypatch):
-        """Auto-chunk 2048 is only validated on the PACKED merged-kernel
-        path: the unpacked dual-attention backward builds monolithic
-        chunk-sized blocks that exceed the 16 MB scoped-VMEM limit at 2048
-        (BENCHLOG section 32 item 4). A GASFM conf that cannot take the
-        packed path (models/gasfm.py use_packed gate) must cap the AUTO
-        choice at 1024; packed-eligible confs and explicit pins are
-        untouched."""
-        monkeypatch.delenv("GASFM_CHUNK", raising=False)
-        dense = generate_synthetic_scene(n_views=48, n_points=512,
-                                         visibility=0.5, seed=0)  # run ~3072
-        gasfm_keys = {
-            "model.type": "graph_attn_sfm.GraphAttnSfMNet",
-            "model.n_feat_proj": 32,
-            "model.use_norm_proj_update": True,
-            "model.n_hidden_layers_proj_update": 0,
-        }
-        assert _bucketizer(**gasfm_keys).chunk_for(dense) == 2048
-        for bad in (
-            {"model.use_norm_proj_update": False},
-            {"model.n_hidden_layers_proj_update": 1},
-            {"model.n_feat_proj": 64},  # not packable
-        ):
-            b = _bucketizer(**{**gasfm_keys, **bad})
-            assert b.chunk_for(dense) == 1024, bad
-        # DPESFM (no dual-attention kernels) keeps the unclamped choice.
-        b = _bucketizer(**{"model.type": "set_of_set.SetOfSetNet"})
-        assert b.chunk_for(dense) == 2048
-        # Data-dependent gate: > 1024 cameras forces the unpacked path at
-        # trace time regardless of conf, so the auto choice caps too.
-        import types
-
-        big = types.SimpleNamespace(valid_pts=np.ones((1032, 64), dtype=bool))
-        assert _bucketizer(**gasfm_keys).chunk_for(big) == 1024
-        # The GASFM_PACKED=0 A/B kill-switch forces the unpacked path too.
-        monkeypatch.setenv("GASFM_PACKED", "0")
-        assert _bucketizer(**gasfm_keys).chunk_for(dense) == 1024
 
     def test_pinned_chunk_conf(self, monkeypatch):
         monkeypatch.delenv("GASFM_CHUNK", raising=False)
@@ -133,9 +87,8 @@ class TestBucketizerChunk:
         assert b.chunk_for(dense) == 1024
 
     def test_off_grid_chunk_rejected(self):
-        """chunk > 1024 must be a 1024-multiple (the unpacked first-layer
-        frontend sub-chunks at 1024; e.g. 1536 would read the window-block
-        prefetch array out of bounds)."""
+        """chunk > 1024 must be a 1024-multiple (the grid of the chunk
+        rule), and every chunk a multiple of 128."""
         data = generate_synthetic_scene(n_views=10, n_points=256, seed=0)
         with pytest.raises(ValueError, match="1024"):
             data.to_scene_graph(chunk=1536)
@@ -163,11 +116,11 @@ class TestMixedChunkEpoch:
 
         monkeypatch.delenv("GASFM_CHUNK", raising=False)
         monkeypatch.setenv("GASFM_RESULTS_PATH", str(tmp_path))
-        from gasfm_tpu.config import load_config
-        from gasfm_tpu.data.dataset import SceneLoader, ScenesDataSet
-        from gasfm_tpu.models import get_model
-        from gasfm_tpu.train.loop import TrainingSession, epoch_train
-        from gasfm_tpu.utils.phases import Phases
+        from gasfm.config import load_config
+        from gasfm.data.dataset import SceneLoader, ScenesDataSet
+        from gasfm.models import get_model
+        from gasfm.train.loop import TrainingSession, epoch_train
+        from gasfm.utils.phases import Phases
 
         conf = load_config(os.path.join("synth", "learning_synth_gasfm.conf"))
         conf.put("exp_dir", "mixed_chunk_test")
@@ -184,7 +137,7 @@ class TestMixedChunkEpoch:
             batch_size=1, shuffle=False, prefetch=0,
         )
         graph = session.bucketize(dense).graph
-        params = jax.jit(model.init)(jax.random.PRNGKey(0), graph)
+        params = model.init(jax.random.PRNGKey(0), graph)
         opt_state = session.tx.init(params)
         params, opt_state, n_updates, mean_loss, losses, n_batches = epoch_train(
             conf, session, loader, params, opt_state, 0, 0, Phases.TRAINING,
@@ -195,23 +148,13 @@ class TestMixedChunkEpoch:
 
 
 class TestChunkCoexistence:
-    @pytest.mark.parametrize("mode,chunks", [
-        ("off", (512, 1024)),
-        ("interpret", (512, 1024)),
-        # chunk 2048 exercises the sub-chunked unpacked first-layer
-        # frontend (ops/gatv2: chunk > 1024 splits at 1024 with repeated
-        # window blocks — the round-5 VMEM workaround).
-        ("interpret", (512, 2048)),
-    ])
-    def test_two_chunks_one_process(self, mode, chunks, monkeypatch):
-        """The same scene built at two different chunks produces the same
-        model output in ONE process (exactly on the XLA path; to kernel
-        reassociation tolerance on the Pallas path — the same noise floor
-        as kernel-vs-XLA at a single chunk)."""
+    @pytest.mark.parametrize("chunks", [(512, 1024), (512, 2048)])
+    def test_two_chunks_one_process(self, chunks, monkeypatch):
+        """The same scene built at two different chunks produces exactly the
+        same model output in ONE process."""
         import jax
 
-        from gasfm_tpu.models import get_model
-        from gasfm_tpu.ops import segment as seg
+        from gasfm.models import get_model
 
         monkeypatch.delenv("GASFM_CHUNK", raising=False)
         c_a, c_b = chunks
@@ -234,19 +177,10 @@ model {
 """)
         model = get_model(conf)
         data = generate_synthetic_scene(n_views=10, n_points=256, seed=0)
-        prev = seg.get_kernel_mode()
-        seg.set_kernel_mode(mode)
-        try:
-            outs = {}
-            for chunk in chunks:
-                sg = data.to_scene_graph(chunk=chunk)
-                params = jax.jit(model.init)(jax.random.PRNGKey(0), sg.graph)
-                pred = jax.jit(model.apply)(params, sg.graph)
-                outs[chunk] = np.asarray(pred["Ps_norm"])
-        finally:
-            seg.set_kernel_mode(prev)
-        if mode == "off":
-            np.testing.assert_array_equal(outs[c_a], outs[c_b])
-        else:
-            np.testing.assert_allclose(outs[c_a], outs[c_b],
-                                       atol=5e-4, rtol=2e-3)
+        outs = {}
+        for chunk in chunks:
+            sg = data.to_scene_graph(chunk=chunk)
+            params = model.init(jax.random.PRNGKey(0), sg.graph)
+            pred = jax.jit(model.apply)(params, sg.graph)
+            outs[chunk] = np.asarray(pred["Ps_norm"])
+        np.testing.assert_array_equal(outs[c_a], outs[c_b])

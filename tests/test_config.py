@@ -4,7 +4,7 @@ import os
 
 import pytest
 
-from gasfm_tpu.config import (
+from gasfm.config import (
     ConfigFactory,
     ConfigMissingError,
     confs_dir,

@@ -4,15 +4,15 @@ invariants, loaders, and use_gt consistency."""
 import numpy as np
 import pytest
 
-from gasfm_tpu.config import ConfigFactory
-from gasfm_tpu.data.augmentation import apply_rotational_homography_aug
-from gasfm_tpu.data.dataset import SceneLoader, ScenesDataSet
-from gasfm_tpu.data.loaders import correct_matches_global
-from gasfm_tpu.data.outliers import inject_outliers
-from gasfm_tpu.data.sampling import get_subset, sample_data, sample_indices
-from gasfm_tpu.data.synthetic import generate_synthetic_scene
-from gasfm_tpu.geometry.np_geo import M_to_xs, reprojection_error_with_points
-from gasfm_tpu.utils.constants import MIN_N_POINTS_PER_VIEW, MIN_N_VIEWS_PER_POINT
+from gasfm.config import ConfigFactory
+from gasfm.data.augmentation import apply_rotational_homography_aug
+from gasfm.data.dataset import SceneLoader, ScenesDataSet
+from gasfm.data.loaders import correct_matches_global
+from gasfm.data.outliers import inject_outliers
+from gasfm.data.sampling import get_subset, sample_data, sample_indices
+from gasfm.data.synthetic import generate_synthetic_scene
+from gasfm.geometry.np_geo import M_to_xs, reprojection_error_with_points
+from gasfm.utils.constants import MIN_N_POINTS_PER_VIEW, MIN_N_VIEWS_PER_POINT
 
 
 class TestSampling:
@@ -55,7 +55,7 @@ class TestAugmentation:
         # Points changed
         assert not np.allclose(aug.M, data.M)
         # GT consistency: triangulate with augmented cameras, reproject
-        from gasfm_tpu.geometry.triangulation import n_view_triangulation
+        from gasfm.geometry.triangulation import n_view_triangulation
 
         X = n_view_triangulation(aug.y.astype(np.float64), aug.M.astype(np.float64), aug.Ns.astype(np.float64))
         err = reprojection_error_with_points(aug.y.astype(np.float64), X.T, M_to_xs(aug.M).astype(np.float64))
@@ -104,7 +104,7 @@ class TestOutlierInjection:
         into _add_margin_rate(1.0) whose `0 < rate < margin < 1` assert
         used to kill the epoch (review round 5; the assert is inherited
         from the reference's add_margin_to_outlier_rate)."""
-        from gasfm_tpu.data.outliers import OutlierInjector
+        from gasfm.data.outliers import OutlierInjector
 
         m, n = 10, 30
         rows = np.repeat(np.arange(m), n).astype(np.int64)
@@ -139,7 +139,7 @@ class TestLoaders:
             data.M.astype(np.float64), data.y.astype(np.float64), data.Ns.astype(np.float64)
         )
         # Corrected matches reproject exactly from some 3D structure
-        from gasfm_tpu.geometry.np_geo import calc_global_reprojection_error
+        from gasfm.geometry.np_geo import calc_global_reprojection_error
 
         err = calc_global_reprojection_error(
             data.y.astype(np.float64), M_gt, data.Ns.astype(np.float64)
@@ -199,7 +199,7 @@ dataset {
 }
 model { depth_head { enabled = false } }
 """)
-        from gasfm_tpu.data.loaders import create_scene_data
+        from gasfm.data.loaders import create_scene_data
 
         data = create_scene_data(conf)
         assert data.num_views == 7
@@ -212,8 +212,8 @@ class TestWorkerPoolLoader:
     sample-equivalent across pool sizes (seeds are drawn per item)."""
 
     def _make(self, num_workers, seed=5):
-        from gasfm_tpu.data.dataset import SceneLoader, ScenesDataSet
-        from gasfm_tpu.data.synthetic import generate_synthetic_scene
+        from gasfm.data.dataset import SceneLoader, ScenesDataSet
+        from gasfm.data.synthetic import generate_synthetic_scene
 
         scenes = [
             generate_synthetic_scene(n_views=8, n_points=48, seed=s, scene_name=f"s{s}")

@@ -7,21 +7,21 @@ from scipy.spatial.transform import Rotation as ScipyRotation
 
 import jax.numpy as jnp
 
-from gasfm_tpu.data.synthetic import generate_synthetic_scene
-from gasfm_tpu.geometry import (
+from gasfm.data.synthetic import generate_synthetic_scene
+from gasfm.geometry import (
     align_cameras,
     get_M_valid_points,
     n_view_triangulation,
     normalize_M,
     reprojection_error_with_points,
 )
-from gasfm_tpu.geometry.np_geo import (
+from gasfm.geometry.np_geo import (
     M_to_xs,
     decompose_camera_matrix,
     shuffle_coo_along_axis_preserving_pattern,
     xs_valid_points,
 )
-from gasfm_tpu.geometry.rotations import (
+from gasfm.geometry.rotations import (
     axis_angle_to_matrix_np,
     compare_rotations_np,
     matrix_to_axis_angle_np,
@@ -192,7 +192,7 @@ class TestAlignment:
         # objective the reference solves with cvxpy (geo_utils.py:94-118).
         from scipy.optimize import minimize
 
-        from gasfm_tpu.geometry.alignment import solve_sum_of_norms_scale_translation
+        from gasfm.geometry.alignment import solve_sum_of_norms_scale_translation
 
         rng = np.random.default_rng(1)
         n = 20
@@ -216,7 +216,7 @@ class TestCameraDecomposition:
         Ks = np.linalg.inv(data.Ns.astype(np.float64))
         Rs, Cs = decompose_camera_matrix(data.y.astype(np.float64), Ks)
         # Recompose: P = K [R^T | -R^T C] (Rs returned are cam->world)
-        from gasfm_tpu.geometry.np_geo import batch_get_camera_matrix_from_rtk
+        from gasfm.geometry.np_geo import batch_get_camera_matrix_from_rtk
 
         P_rec = batch_get_camera_matrix_from_rtk(Rs, Cs, Ks)
         scale = data.y[:, 0, 0] / P_rec[:, 0, 0]
@@ -235,7 +235,7 @@ class TestIRLSReachesConvexOptimum:
     def test_matches_scipy_minimum(self, seed, noise):
         from scipy.optimize import minimize
 
-        from gasfm_tpu.geometry.alignment import solve_sum_of_norms_scale_translation
+        from gasfm.geometry.alignment import solve_sum_of_norms_scale_translation
 
         rng = np.random.default_rng(seed)
         n = 20

@@ -6,10 +6,10 @@ commented-out connectivity harness (SceneData.py:189-230)."""
 import numpy as np
 import jax.numpy as jnp
 
-from gasfm_tpu.data.synthetic import generate_synthetic_scene
-from gasfm_tpu.geometry.np_geo import get_M_valid_points
-from gasfm_tpu.graph import bucket_size, build_view_graph
-from gasfm_tpu.ops import (
+from gasfm.data.synthetic import generate_synthetic_scene
+from gasfm.geometry.np_geo import get_M_valid_points
+from gasfm.graph import bucket_size, build_view_graph
+from gasfm.ops import (
     gather_segments,
     masked_mean,
     segment_mean,
@@ -45,7 +45,7 @@ class TestBuild:
         assert (np.asarray(graph.pt_idx)[~emask] == graph.num_pts).all()
 
     def test_blocked_layout_invariants(self):
-        from gasfm_tpu.graph.view_graph import CHUNK, WINDOW
+        from gasfm.graph.view_graph import CHUNK, WINDOW
         _, graph = make_graph(seed=11, n_views=9, n_points=700)
         E = graph.num_edges
         assert E % CHUNK == 0

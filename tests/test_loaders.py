@@ -10,14 +10,14 @@ rotation assert (reference Euclidean.py:22-44), ``use_gt`` match correction
 import numpy as np
 import pytest
 
-from gasfm_tpu.config import ConfigFactory
-from gasfm_tpu.data.loaders import (
+from gasfm.config import ConfigFactory
+from gasfm.data.loaders import (
     create_scene_data,
     get_raw_data_euclidean,
     get_raw_data_projective,
 )
-from gasfm_tpu.data.synthetic import generate_synthetic_scene
-from gasfm_tpu.geometry.np_geo import get_M_valid_points
+from gasfm.data.synthetic import generate_synthetic_scene
+from gasfm.geometry.np_geo import get_M_valid_points
 
 
 @pytest.fixture(scope="module")

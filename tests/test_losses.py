@@ -8,10 +8,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from gasfm_tpu.config import ConfigFactory
-from gasfm_tpu.data.synthetic import generate_synthetic_scene
-from gasfm_tpu.geometry.triangulation import n_view_triangulation
-from gasfm_tpu.losses import ESFMLoss, ExpDepthRegularizedOSELoss, get_loss_func, project_edges
+from gasfm.config import ConfigFactory
+from gasfm.data.synthetic import generate_synthetic_scene
+from gasfm.geometry.triangulation import n_view_triangulation
+from gasfm.losses import ESFMLoss, ExpDepthRegularizedOSELoss, get_loss_func, project_edges
 
 LOSS_CONF = """
 dataset { calibrated = true }
@@ -154,7 +154,7 @@ class TestGradEqualization:
         proj0 = project_edges(pred["Ps_norm"], pred["pts3D"], graph)
 
         def f(proj):
-            from gasfm_tpu.losses import _equalize_grads_valid_only
+            from gasfm.losses import _equalize_grads_valid_only
 
             margin = loss_fn.infinity_pts_margin
             pos = proj[:, 2] >= margin

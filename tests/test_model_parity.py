@@ -4,7 +4,7 @@
 The oracle reproduces the reference nets with reference state_dict naming
 (code/models/graph_attn_sfm.py:117-185, SetOfSet.py:102-142,
 layers.py:150-956), weights are converted with
-gasfm_tpu.models.convert.convert_reference_state_dict — the exact converter
+gasfm.models.convert.convert_reference_state_dict — the exact converter
 a user would run on a published reference checkpoint — and both networks run
 on the same scene. Per-layer edge/point/view/global streams and the decoded
 outputs must agree (VERDICT round 1, item 4)."""
@@ -15,10 +15,10 @@ import torch
 
 import jax
 
-from gasfm_tpu.data.synthetic import generate_synthetic_scene
-from gasfm_tpu.models.convert import convert_reference_state_dict
-from gasfm_tpu.models.gasfm import GraphAttnSfMNet
-from gasfm_tpu.models.set_of_set import SetOfSetNet
+from gasfm.data.synthetic import generate_synthetic_scene
+from gasfm.models.convert import convert_reference_state_dict
+from gasfm.models.gasfm import GraphAttnSfMNet
+from gasfm.models.set_of_set import SetOfSetNet
 
 import torch_oracle as oracle
 
@@ -250,7 +250,7 @@ class TestFlagshipShapeParity:
 class TestFlagshipF64DeepParity:
     """Round-5 (verdict #8): the FULL flagship architecture — 9 layers,
     4 heads, widths 32/64/1024/2048 — in float64 end to end on a larger
-    synthetic scene, transplanted-weight flax vs the f64 torch oracle.
+    synthetic scene, transplanted-weight JAX model vs the f64 torch oracle.
     Running both sides in f64 removes the accumulation-precision excuse, so
     the tolerance tightens from the f32 test's 1e-3 to 1e-6 (measured
     agreement is ~1e-7 relative — pure f64 reassociation across nine
@@ -280,10 +280,6 @@ class TestFlagshipF64DeepParity:
             ref.state_dict(), "graph_attn_sfm.GraphAttnSfMNet")
         model = GraphAttnSfMNet(
             global2view_and_global2scenepoint_enabled=False, **kw)
-        from gasfm_tpu.ops import segment as seg
-
-        prev = seg.get_kernel_mode()
-        seg.set_kernel_mode("off")  # f64 runs the exact XLA path
         jax.config.update("jax_enable_x64", True)
         try:
             params64 = jax.tree_util.tree_map(
@@ -298,7 +294,6 @@ class TestFlagshipF64DeepParity:
             pts = np.asarray(pred["pts3D"], np.float64)[:, : og.n]
         finally:
             jax.config.update("jax_enable_x64", False)
-            seg.set_kernel_mode(prev)
         assert Ps.dtype == np.float64
         assert_close("Ps_norm", pred_ref["Ps_norm"], Ps, tol=1e-6)
         assert_close("pts3D", pred_ref["pts3D"], pts, tol=1e-6)

@@ -8,10 +8,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from gasfm_tpu.config import ConfigFactory
-from gasfm_tpu.data.synthetic import generate_synthetic_scene
-from gasfm_tpu.graph import build_view_graph
-from gasfm_tpu.models import GraphAttnSfMNet, SetOfSetNet, get_model
+from gasfm.config import ConfigFactory
+from gasfm.data.synthetic import generate_synthetic_scene
+from gasfm.graph import build_view_graph
+from gasfm.models import GraphAttnSfMNet, SetOfSetNet, get_model
 
 GASFM_CONF = """
 dataset { calibrated = true }
@@ -185,7 +185,7 @@ class TestRematLayers:
     def test_remat_is_numerically_identical(self):
         import jax.numpy as jnp
 
-        from gasfm_tpu.models.gasfm import GraphAttnSfMNet
+        from gasfm.models.gasfm import GraphAttnSfMNet
 
         data = generate_synthetic_scene(n_views=7, n_points=300, seed=2)
         graph = build_view_graph(data.M, data.Ns)
@@ -220,7 +220,7 @@ class TestPaddedRowDecodeFinite:
         import jax
         import jax.numpy as jnp
 
-        from gasfm_tpu.models.heads import decode_view_outputs, view_head_out_channels
+        from gasfm.models.heads import decode_view_outputs, view_head_out_channels
 
         mask = jnp.array([True] * 5 + [False] * 3)
         for rep in ["quat", "6d", "svd"]:

@@ -10,22 +10,22 @@ import pytest
 
 import jax
 
-from gasfm_tpu.config import load_config
-from gasfm_tpu.experiments import (
+from gasfm.config import load_config
+from gasfm.experiments import (
     create_eval_dataloaders,
     eval_model,
     optimization_all_test_scenes,
     train_model,
 )
-from gasfm_tpu.models import get_model
-from gasfm_tpu.utils import paths
-from gasfm_tpu.utils.phases import Phases
+from gasfm.models import get_model
+from gasfm.utils import paths
+from gasfm.utils.phases import Phases
 
 
 @pytest.fixture(autouse=True)
 def results_tmpdir(tmp_path, monkeypatch):
     monkeypatch.setenv("GASFM_RESULTS_PATH", str(tmp_path))
-    import gasfm_tpu.utils.observability as obs
+    import gasfm.utils.observability as obs
 
     obs.reset_tb_writer()
     yield
@@ -49,7 +49,7 @@ def test_multi_scene_learning_pipeline():
         conf, model, params, datasets["train_set"], eval_loaders, Phases.TRAINING, rng=rng
     )
     assert "final_model" in trained and "best_model" in trained
-    assert np.isfinite(train_stats["best_validation_metric"].iloc[0])
+    assert np.isfinite(train_stats["best_validation_metric"])
 
     # 3-way eval writer
     eval_model(conf, model, trained["final_model"], eval_loaders, -1, "final_", rng=rng)

@@ -2,23 +2,25 @@
 edge-partitioned step must be numerically identical to the single-device
 step (forward, loss, gradients, parameter updates)."""
 
+import contextlib
+
 import numpy as np
 import pytest
 
 import jax
 import jax.numpy as jnp
 
-from gasfm_tpu.config import ConfigFactory
-from gasfm_tpu.data.synthetic import generate_synthetic_scene
-from gasfm_tpu.losses import get_loss_func
-from gasfm_tpu.models import get_model
-from gasfm_tpu.parallel import (
+from gasfm.config import ConfigFactory
+from gasfm.data.synthetic import generate_synthetic_scene
+from gasfm.losses import get_loss_func
+from gasfm.models import get_model
+from gasfm.parallel import (
     make_mesh,
     make_sharded_forward,
     make_sharded_train_step,
     stack_scene_graphs,
 )
-from gasfm_tpu.train.state import build_optimizer
+from gasfm.train.state import build_optimizer
 
 CONF = """
 dataset { calibrated = true }
@@ -59,6 +61,30 @@ loss {
 """
 
 
+@contextlib.contextmanager
+def float64(*trees):
+    """Run a sharded-vs-single-device comparison in float64, yielding
+    ``trees`` with their floating leaves cast to float64.
+
+    In float32 the two differ by the reassociation of the psum's partial
+    sums: ~1e-8 absolute on gradient entries near zero, which crosses the
+    comparisons' absolute floors for some initial draws (and near zero depth
+    1/depth magnifies it in the loss). In float64 that noise is ~1e-16
+    relative, far below every tolerance, so the comparison decides on the
+    sharding logic for any draw: a dropped or doubled cross-shard term is an
+    O(1) error."""
+
+    def cast(x):
+        x = np.asarray(x)
+        return x.astype(np.float64) if np.issubdtype(x.dtype, np.floating) else x
+
+    jax.config.update("jax_enable_x64", True)
+    try:
+        yield [jax.tree_util.tree_map(cast, t) for t in trees]
+    finally:
+        jax.config.update("jax_enable_x64", False)
+
+
 def make_scenes(n, caps=None):
     scenes = []
     for seed in range(n):
@@ -86,7 +112,7 @@ def assert_spans_shards(scene, n_edge):
 def make_spanning_scenes(n, n_edge_shards, caps_chunks=4):
     """Scenes whose valid edges span multiple edge shards (2 point windows,
     each window's run longer than one chunk-aligned shard slice)."""
-    from gasfm_tpu.graph.view_graph import CHUNK
+    from gasfm.graph.view_graph import CHUNK
 
     scenes = []
     for seed in range(n):
@@ -99,7 +125,7 @@ def make_spanning_scenes(n, n_edge_shards, caps_chunks=4):
 
 @pytest.fixture(scope="module")
 def setup():
-    from gasfm_tpu.graph.view_graph import CHUNK
+    from gasfm.graph.view_graph import CHUNK
 
     conf = ConfigFactory.parse_string(CONF)
     model = get_model(conf)
@@ -130,8 +156,11 @@ class TestShardedForward:
 class TestShardedTrainStep:
     def test_matches_single_device_update(self, setup):
         conf, model, scenes, params = setup
+        with float64(scenes, params) as (scenes, params):
+            self._check_matches_single_device_update(conf, model, scenes, params)
+
+    def _check_matches_single_device_update(self, conf, model, scenes, params):
         loss_func = get_loss_func(conf)
-        tx, _ = build_optimizer(conf)
 
         # Single-device reference: batch-accumulated grads over both scenes.
         def loss_fn(p, scene):
@@ -148,8 +177,8 @@ class TestShardedTrainStep:
         # Sharded gradients: data=2 x edge=4 mesh.
         from jax.sharding import PartitionSpec as P
 
-        from gasfm_tpu.ops.segment import edge_partitioned
-        from gasfm_tpu.parallel import DATA_AXIS, EDGE_AXIS, scene_graph_specs
+        from gasfm.ops.segment import edge_partitioned
+        from gasfm.parallel import DATA_AXIS, EDGE_AXIS, scene_graph_specs
 
         mesh = make_mesh(n_edge=4, n_data=2)
 
@@ -178,8 +207,7 @@ class TestShardedTrainStep:
         assert len(flat_ref) == len(flat_sh)
         for a, b in zip(flat_ref, flat_sh):
             a, b = np.asarray(a), np.asarray(b)
-            # Scale floor 1e-2: psum reassociation leaves ~1e-8 absolute
-            # noise on near-zero leaves of the larger spanning scenes.
+            assert a.dtype == b.dtype == np.float64
             scale = max(np.abs(a).max(), 1e-2)
             np.testing.assert_allclose(a, b, atol=2e-5 * scale, rtol=1e-3)
 
@@ -206,9 +234,9 @@ class TestProductionMeshTrainer:
     `parallel.mesh_shape` (VERDICT round 1, item 2)."""
 
     def _run_epochs(self, conf, scenes_data, n_epochs=2, batch_size=2):
-        from gasfm_tpu.data.dataset import SceneLoader, ScenesDataSet
-        from gasfm_tpu.train.loop import TrainingSession, epoch_train
-        from gasfm_tpu.utils.phases import Phases
+        from gasfm.data.dataset import SceneLoader, ScenesDataSet
+        from gasfm.train.loop import TrainingSession, epoch_train
+        from gasfm.utils.phases import Phases
 
         model = get_model(conf)
         session = TrainingSession(conf, model)
@@ -227,7 +255,7 @@ class TestProductionMeshTrainer:
         return session, params, mean_loss
 
     def test_epoch_train_matches_single_device(self):
-        from gasfm_tpu.data.synthetic import generate_synthetic_scene
+        from gasfm.data.synthetic import generate_synthetic_scene
 
         scenes_data = [
             generate_synthetic_scene(n_views=6, n_points=48, seed=s, scene_name=f"synth{s}")
@@ -262,20 +290,20 @@ class TestProductionMeshTrainer:
             a, b = np.asarray(a), np.asarray(b)
             np.testing.assert_allclose(a, b, atol=2e-5, rtol=2e-3)
 
-        # DEFAULT mesh path (round-5: table_sharding auto-on for n_edge > 1):
-        # the boundary-exchange combine is exact math with different float
-        # association, so compare LOSS and GRADIENTS at tolerance —
+        # DEFAULT mesh path (table_sharding on for n_edge > 1): the owned-row
+        # point pool is exact math with different float association, so
+        # compare LOSS and GRADIENTS at tolerance —
         # post-Adam params are not comparable on zero-gradient leaves
         # (Adam's first debiased update is ±lr whatever the gradient
         # magnitude, so noise-level sign flips move params by 2*lr).
-        from gasfm_tpu.train.loop import TrainingSession
+        from gasfm.train.loop import TrainingSession
 
         conf_mesh_dflt = ConfigFactory.parse_string(
             CONF + "\nparallel { mesh_shape = [2, 4] }\n"
         )
         model = get_model(conf_mesh_dflt)
         session_dflt = TrainingSession(conf_mesh_dflt, model)
-        assert session_dflt.bucketize.table_sharding  # default flipped on
+        assert conf_mesh_dflt.get_bool("parallel.table_sharding", default=None) is None
         session_rep = TrainingSession(conf_mesh, model)
         sg = session_dflt.bucketize(scenes_data[0])
         params0 = model.init(jax.random.PRNGKey(7), sg.graph)
@@ -300,8 +328,8 @@ class TestProductionMeshTrainer:
     def test_weight_padded_group_step(self):
         """A short scene group (1 valid scene on a 2-slot data axis) must
         produce exactly the single-scene update (padded slot weight 0)."""
-        from gasfm_tpu.data.synthetic import generate_synthetic_scene
-        from gasfm_tpu.train.loop import TrainingSession
+        from gasfm.data.synthetic import generate_synthetic_scene
+        from gasfm.train.loop import TrainingSession
 
         # table_sharding pinned off: this is an EXACTNESS test (see the
         # pin note in test_epoch_train_matches_single_device).
@@ -335,118 +363,13 @@ class TestProductionMeshTrainer:
             np.testing.assert_allclose(a, b, atol=5e-5 * scale, rtol=2e-3)
 
 
-class TestCollectiveFusedKernels:
-    """The fused Pallas attention kernels under edge partitioning (VERDICT
-    round 1, item 3): each shard runs the kernel unfinalized and the softmax
-    (num, max, den) triples combine across shards with pmax/psum
-    (ops/pallas/fused_attn.combine_attention_shards). Interpret mode on a
-    2-shard CPU mesh must match the single-device composite XLA path on
-    forward AND gradients."""
-
-    def test_sharded_frontend_matches_composite(self):
-        from jax.sharding import Mesh, PartitionSpec as P
-
-        from gasfm_tpu.ops import segment as seg
-        from gasfm_tpu.ops.gatv2 import gatv2_layer_frontend
-        from gasfm_tpu.ops.segment import SegmentWindows, edge_partitioned
-
-        data = generate_synthetic_scene(n_views=6, n_points=120, seed=0)
-        # 2 shards x 2 chunks of 512: every shard's slice is CHUNK-aligned.
-        scene = data.to_scene_graph(caps=(8, 256, 2048))
-        g = scene.graph
-        E, De = g.num_edges, 8
-        Hp = Hc = 2
-        Dp = Dc = 8
-        rng = np.random.default_rng(0)
-        r = lambda *s: jnp.asarray(rng.standard_normal(s).astype(np.float32))  # noqa: E731
-        e_raw = r(E, De)
-        ln_s, ln_b = r(De), r(De)
-        wlp, blp, wlc, blc = r(De, Dp) * 0.3, r(Dp) * 0.1, r(De, Dc) * 0.3, r(Dc) * 0.1
-        att_p, att_c = r(Hp, Dp // Hp), r(Hc, Dc // Hc)
-        xr_p = r(g.num_pts, Hp, Dp // Hp)
-        xr_c = r(g.num_cams, Hc, Dc // Hc)
-
-        def run(e_raw, xr_p, xr_c, window, pt_ids, cam_ids, edge_mask):
-            return gatv2_layer_frontend(
-                e_raw, ln_s, ln_b, 1e-5,
-                wlp, blp, att_p, xr_p, pt_ids, g.num_pts, window,
-                wlc, blc, att_c, xr_c, cam_ids, g.num_cams, edge_mask=edge_mask,
-            )
-
-        def loss_of(e_raw, xr_p, xr_c, window, pt_ids, cam_ids, edge_mask):
-            en, out_p, out_c = run(e_raw, xr_p, xr_c, window, pt_ids, cam_ids, edge_mask)
-            return jnp.sum(en**2) * 0.001 + jnp.sum(out_p**2) + jnp.sum(out_c**2)
-
-        window = g.pt_segment_windows()
-        prev_mode = seg.get_kernel_mode()
-        try:
-            seg.set_kernel_mode("off")
-            ref_out = run(e_raw, xr_p, xr_c, window, g.pt_idx, g.cam_idx, g.edge_mask)
-            ref_grads = jax.grad(loss_of, argnums=(0, 1, 2))(
-                e_raw, xr_p, xr_c, window, g.pt_idx, g.cam_idx, g.edge_mask
-            )
-
-            seg.set_kernel_mode("interpret")
-            mesh = Mesh(np.asarray(jax.devices()[:2]), axis_names=("edge",))
-
-            n_shards = 2
-
-            def loss_sharded(e_raw, xr_p, xr_c, window, pt_ids, cam_ids, edge_mask):
-                # Interior-cotangent contract (ops/segment.py): the table
-                # outputs' cotangents must arrive at the attention backward
-                # as per-shard PARTIALS (the kernel bwd psums them to the
-                # full cotangent). The en term is per-edge (shard-local
-                # slice = its partial); the table terms are INVARIANT
-                # (identical on every shard), so each shard contributes an
-                # equal 1/n_shards share. Production losses are per-edge
-                # reductions and satisfy this automatically.
-                en, out_p, out_c = run(e_raw, xr_p, xr_c, window, pt_ids,
-                                       cam_ids, edge_mask)
-                return jnp.sum(en**2) * 0.001 + (
-                    jnp.sum(out_p**2) + jnp.sum(out_c**2)
-                ) / n_shards
-
-            def per_device(e_raw, pt_ids, cam_ids, edge_mask, pt_window, xr_p, xr_c):
-                wb = pt_window.reshape(-1, 512)[:, 0]
-                row_ok = jnp.repeat(g.pt_block_visited, 128)[: g.num_pts]
-                win = SegmentWindows(block=wb, row_ok=row_ok)
-                with edge_partitioned("edge"):
-                    en, out_p, out_c = run(e_raw, xr_p, xr_c, win, pt_ids, cam_ids, edge_mask)
-                    grads = jax.grad(loss_sharded, argnums=(0, 1, 2))(
-                        e_raw, xr_p, xr_c, win, pt_ids, cam_ids, edge_mask
-                    )
-                g_e, g_xrp, g_xrc = grads
-                # Table cotangents are per-shard partials (summed like grads).
-                return (en, out_p, out_c, g_e,
-                        jax.lax.psum(g_xrp, "edge"), jax.lax.psum(g_xrc, "edge"))
-
-            sharded = jax.shard_map(
-                per_device, mesh=mesh,
-                in_specs=(P("edge"), P("edge"), P("edge"), P("edge"), P("edge"), P(), P()),
-                out_specs=(P("edge"), P(), P(), P("edge"), P(), P()),
-                check_vma=False,
-            )
-            outs = jax.jit(sharded)(
-                e_raw, g.pt_idx, g.cam_idx, g.edge_mask, g.pt_window, xr_p, xr_c
-            )
-        finally:
-            seg.set_kernel_mode(prev_mode)
-
-        refs = list(ref_out) + list(ref_grads)
-        names = ["en", "out_p", "out_c", "g_e", "g_xrp", "g_xrc"]
-        for name, a, b in zip(names, refs, outs):
-            a, b = np.asarray(a), np.asarray(b)
-            scale = max(np.abs(a).max(), 1e-3)
-            np.testing.assert_allclose(a, b, atol=2e-5 * scale, err_msg=name)
-
-
 class TestDistributedInit:
     """Conf gating of the multi-host runtime startup (jax.distributed
     bootstrap — SURVEY section 2.7's communication-backend row)."""
 
     def test_disabled_by_default_and_kwargs_plumbed(self, monkeypatch):
-        from gasfm_tpu.config import ConfigFactory
-        from gasfm_tpu.parallel.edge_sharding import initialize_distributed
+        from gasfm.config import ConfigFactory
+        from gasfm.parallel.edge_sharding import initialize_distributed
 
         conf = ConfigFactory.parse_string("parallel { }")
         assert initialize_distributed(conf) is False
@@ -478,10 +401,10 @@ class TestGroupedMeshEval:
     table as the single-device evaluation."""
 
     def test_grouped_eval_matches_single_device(self):
-        from gasfm_tpu.data.dataset import SceneLoader, ScenesDataSet
-        from gasfm_tpu.data.synthetic import generate_synthetic_scene
-        from gasfm_tpu.train.loop import TrainingSession, epoch_evaluation
-        from gasfm_tpu.utils.phases import Phases
+        from gasfm.data.dataset import SceneLoader, ScenesDataSet
+        from gasfm.data.synthetic import generate_synthetic_scene
+        from gasfm.train.loop import TrainingSession, epoch_evaluation
+        from gasfm.utils.phases import Phases
 
         scenes_data = [
             generate_synthetic_scene(n_views=6, n_points=48, seed=s, scene_name=f"synth{s}")
@@ -515,11 +438,10 @@ class TestGroupedMeshEval:
         assert session_m.mesh is not None and session_m.n_data == 2
         df_mesh = run(conf_mesh, session_m)
 
-        assert list(df_single.index) == list(df_mesh.index)
+        assert [r["Scene"] for r in df_single] == [r["Scene"] for r in df_mesh]
         for col in ("our_repro", "t_err_mean", "R_err_mean"):
             np.testing.assert_allclose(
-                df_mesh[col].to_numpy(dtype=float),
-                df_single[col].to_numpy(dtype=float),
+                [r[col] for r in df_mesh], [r[col] for r in df_single],
                 rtol=2e-3, atol=1e-4, err_msg=col,
             )
 
@@ -527,10 +449,10 @@ class TestGroupedMeshEval:
         """Scenes of DIFFERENT sizes must group (bucket-padded to the
         group maximum — round-3 verdict item 7) instead of silently
         falling back to one scene replicated per call."""
-        from gasfm_tpu.data.dataset import SceneLoader, ScenesDataSet
-        from gasfm_tpu.data.synthetic import generate_synthetic_scene
-        from gasfm_tpu.train.loop import TrainingSession, epoch_evaluation
-        from gasfm_tpu.utils.phases import Phases
+        from gasfm.data.dataset import SceneLoader, ScenesDataSet
+        from gasfm.data.synthetic import generate_synthetic_scene
+        from gasfm.train.loop import TrainingSession, epoch_evaluation
+        from gasfm.utils.phases import Phases
 
         # Three sizes -> three distinct capacity buckets.
         scenes_data = [
@@ -567,26 +489,23 @@ class TestGroupedMeshEval:
         session_m = TrainingSession(conf_mesh, get_model(conf_mesh))
         df_mesh = run(conf_mesh, session_m)
 
-        assert list(df_single.index) == list(df_mesh.index)
+        assert [r["Scene"] for r in df_single] == [r["Scene"] for r in df_mesh]
         for col in ("our_repro", "t_err_mean", "R_err_mean"):
             np.testing.assert_allclose(
-                df_mesh[col].to_numpy(dtype=float),
-                df_single[col].to_numpy(dtype=float),
+                [r[col] for r in df_mesh], [r[col] for r in df_single],
                 rtol=2e-3, atol=1e-4, err_msg=col,
             )
 
     def test_grouped_eval_mixed_capacities_table_sharded(self):
-        """Mixed-capacity grouped eval with the round-5 DEFAULT
-        table-sharded combine (on for n_edge > 1): the _flush re-pad
-        rebuilds minority scenes at group caps / group-min chunk, which
-        shifts shard boundaries — the span<=2 contract check must re-run on
-        the REBUILT graphs (review round 5) and the sharded metrics must
-        still track single-device evaluation."""
-        from gasfm_tpu.data.dataset import SceneLoader, ScenesDataSet
-        from gasfm_tpu.data.synthetic import generate_synthetic_scene
-        from gasfm_tpu.ops import segment as seg
-        from gasfm_tpu.train.loop import TrainingSession, epoch_evaluation
-        from gasfm_tpu.utils.phases import Phases
+        """Mixed-capacity grouped eval with the DEFAULT table-sharded point
+        pool (on for n_edge > 1): the _flush re-pad rebuilds minority scenes
+        at group caps / group-min chunk, which shifts shard boundaries and
+        with them the owned rows; the sharded metrics must still track
+        single-device evaluation."""
+        from gasfm.data.dataset import SceneLoader, ScenesDataSet
+        from gasfm.data.synthetic import generate_synthetic_scene
+        from gasfm.train.loop import TrainingSession, epoch_evaluation
+        from gasfm.utils.phases import Phases
 
         scenes_data = [
             generate_synthetic_scene(n_views=6, n_points=48, seed=0, scene_name="small"),
@@ -614,119 +533,32 @@ class TestGroupedMeshEval:
 
         df_single = run(conf_single, session_s)
         session_m = TrainingSession(conf_mesh, get_model(conf_mesh))
-        assert session_m.bucketize.table_sharding
-        seg.set_kernel_mode("interpret")
-        try:
-            df_mesh = run(conf_mesh, session_m)
-        finally:
-            seg.set_kernel_mode("auto")
+        df_mesh = run(conf_mesh, session_m)
 
-        assert list(df_single.index) == list(df_mesh.index)
-        # The boundary exchange reorders point-side sums, so this is a
+        assert [r["Scene"] for r in df_single] == [r["Scene"] for r in df_mesh]
+        # The owned-row pool reorders point-side sums, so this is a
         # tolerance check, not exactness (exactness: TestTableSharding).
         for col in ("our_repro", "t_err_mean", "R_err_mean"):
             np.testing.assert_allclose(
-                df_mesh[col].to_numpy(dtype=float),
-                df_single[col].to_numpy(dtype=float),
+                [r[col] for r in df_mesh], [r[col] for r in df_single],
                 rtol=5e-3, atol=1e-3, err_msg=col,
             )
 
 
-class TestPackedMergedUnderSharding:
-    """The PACKED + MERGED kernel path (packing.py / fused_layer_step.py)
-    under edge partitioning: the full-model sharded loss and gradients must
-    match single-device execution with the same kernels active (interpret
-    mode; num/m/den triples combine via combine_attention_shards, the
-    merged update's table/weight grads ride the trailing grad psum)."""
-
-    def test_sharded_grads_match_single_device(self, monkeypatch):
-        from gasfm_tpu.graph.view_graph import CHUNK
-        from gasfm_tpu.ops import segment as seg
-        from gasfm_tpu.ops.segment import edge_partitioned
-        from jax.sharding import Mesh, PartitionSpec as P
-
-        conf = ConfigFactory.parse_string(CONF)
-        for k, v in dict(n_feat_proj=32, num_layers=3, n_heads=4).items():
-            conf.put(f"model.{k}", v)
-        model = get_model(conf)
-        loss_func = get_loss_func(conf)
-
-        data = generate_synthetic_scene(n_views=12, n_points=220, visibility=0.6, seed=4)
-        # 2 shards, each a whole number of chunks, with valid edges on BOTH
-        # (cross-shard gradient coupling live — see assert_spans_shards).
-        scene = data.to_scene_graph(caps=(16, 256, 4 * CHUNK))
-        assert scene.graph.num_edges % (2 * CHUNK) == 0
-        assert_spans_shards(scene, 2)
-
-        monkeypatch.setenv("GASFM_PACKED", "1")
-        monkeypatch.setenv("GASFM_MERGED", "1")
-        seg.set_kernel_mode("interpret")
-        try:
-            params = model.init(jax.random.PRNGKey(1), scene.graph)
-
-            def loss_fn(p, sc):
-                return loss_func(model.apply(p, sc.graph), sc)
-
-            l_single, g_single = jax.value_and_grad(loss_fn)(params, scene)
-
-            from gasfm_tpu.parallel import (
-                EDGE_AXIS,
-                make_mesh,
-                scene_graph_specs,
-                stack_scene_graphs,
-            )
-
-            mesh = make_mesh(n_edge=2, n_data=1)
-            batched = stack_scene_graphs([scene])
-
-            def per_device(p, sc):
-                sc = jax.tree_util.tree_map(lambda x: x[0], sc)
-                with edge_partitioned(EDGE_AXIS):
-                    loss, grads = jax.value_and_grad(loss_fn)(p, sc)
-                return loss, jax.lax.psum(grads, EDGE_AXIS)
-
-            sharded = jax.shard_map(
-                per_device, mesh=mesh,
-                in_specs=(P(), scene_graph_specs(batched=True, has_depths=False)),
-                out_specs=(P(), P()), check_vma=False,
-            )
-            l_mesh, g_mesh = jax.jit(sharded)(params, batched)
-        finally:
-            seg.set_kernel_mode("auto")
-
-        np.testing.assert_allclose(float(l_mesh), float(l_single), rtol=2e-5)
-        for (path, a), b in zip(
-            jax.tree_util.tree_leaves_with_path(g_single),
-            jax.tree_util.tree_leaves(g_mesh),
-        ):
-            a, b = np.asarray(a), np.asarray(b)
-            scale = max(2e-4, np.abs(a).max())
-            np.testing.assert_allclose(
-                b, a, atol=5e-4 * scale, rtol=2e-3,
-                err_msg=f"grad mismatch at {jax.tree_util.keystr(path)}",
-            )
-
-
 class TestSubChunkShardGradients:
-    """Edge shards SMALLER than one CHUNK (the regime outside the
-    bucketizer's kernel contract): per-shard edge arrays are not
-    chunk-aligned, so every segment op falls back to the XLA path inside
-    shard_map — and the gradients must STILL match single-device execution.
-
-    This resolves the round-3 anomaly ("sub-chunk shards inexact, mechanism
-    not understood"): exactness never depended on chunk alignment. The
-    round-3 identity transpose kept only same-shard gradient paths, which
-    happened to be all of them in the old chunk-aligned tests (every valid
-    edge on shard 0) and visibly broke in this test's multi-shard regime.
-    With the interior psum transpose (ops/segment.py) both regimes are
-    exact."""
+    """Edge shards SMALLER than one CHUNK (outside the bucketizer's shard
+    contract): per-shard edge arrays are not chunk-aligned, and the
+    gradients must STILL match single-device execution. An identity
+    transpose of the cross-shard sums would keep only same-shard gradient
+    paths and break here; the interior psum transpose (ops/segment.py)
+    is exact for any sharding."""
 
     def test_64_edge_shards_match_single_device(self, setup):
         from jax.sharding import PartitionSpec as P
 
-        from gasfm_tpu.graph.view_graph import CHUNK
-        from gasfm_tpu.ops.segment import edge_partitioned
-        from gasfm_tpu.parallel import EDGE_AXIS, make_mesh, scene_graph_specs
+        from gasfm.graph.view_graph import CHUNK
+        from gasfm.ops.segment import edge_partitioned
+        from gasfm.parallel import EDGE_AXIS, make_mesh, scene_graph_specs
 
         conf, model, _, _ = setup
         loss_func = get_loss_func(conf)
@@ -739,8 +571,6 @@ class TestSubChunkShardGradients:
 
         def loss_fn(p, sc):
             return loss_func(model.apply(p, sc.graph), sc)
-
-        l_ref, g_ref = jax.value_and_grad(loss_fn)(params, scene)
 
         mesh = make_mesh(n_edge=8, n_data=1)
 
@@ -755,7 +585,9 @@ class TestSubChunkShardGradients:
             in_specs=(P(), scene_graph_specs(batched=True)),
             out_specs=(P(), P()), check_vma=False,
         )
-        l_sh, g_sh = jax.jit(sharded)(params, stack_scene_graphs([scene]))
+        with float64(params, scene) as (params, scene):
+            l_ref, g_ref = jax.value_and_grad(loss_fn)(params, scene)
+            l_sh, g_sh = jax.jit(sharded)(params, stack_scene_graphs([scene]))
 
         assert float(l_sh) == pytest.approx(float(l_ref), rel=1e-5)
         for (path, a), b in zip(
@@ -763,6 +595,7 @@ class TestSubChunkShardGradients:
             jax.tree_util.tree_leaves(g_sh),
         ):
             a, b = np.asarray(a), np.asarray(b)
+            assert a.dtype == b.dtype == np.float64
             scale = max(np.abs(a).max(), 1e-3)
             np.testing.assert_allclose(
                 b, a, atol=2e-5 * scale, rtol=1e-3,
@@ -771,16 +604,13 @@ class TestSubChunkShardGradients:
 
 
 class TestTableSharding:
-    """Sub-linear boundary exchange (parallel.table_sharding): point-side
-    attention combines exchange only first/last-window partials with
-    neighbor shards (ops/pallas/fused_attn.exchange_boundary_windows), the
-    point->global pool combines owned-row triples, and pts3D is assembled
-    by ONE masked psum — per-shard collective volume is O(WINDOW * D) per
-    layer instead of the full (N, D) tables. Forward, loss and EVERY
-    gradient leaf must match single-device execution exactly."""
+    """parallel.table_sharding: the point->global pool combines owned-row
+    softmax triples across shards, and pts3D is assembled by ONE masked
+    psum. Forward, loss and EVERY gradient leaf must match single-device
+    execution."""
 
     def _conf_model_scene(self):
-        from gasfm_tpu.graph.view_graph import CHUNK
+        from gasfm.graph.view_graph import CHUNK
 
         conf = ConfigFactory.parse_string(
             CONF + "\nparallel { mesh_shape = [1, 4], table_sharding = true }\n"
@@ -791,26 +621,11 @@ class TestTableSharding:
         assert_spans_shards(scene, 4)
         return conf, model, scene
 
-    def test_contract_check(self):
-        from gasfm_tpu.graph.view_graph import CHUNK
-        from gasfm_tpu.parallel import check_table_shard_contract
-
-        conf, model, scene = self._conf_model_scene()
-        check_table_shard_contract(
-            scene.graph.pt_window, 4, scene.graph.edge_mask
-        )  # passes
-        # One window whose live run spans 4 one-chunk shards violates span<=2.
-        data = generate_synthetic_scene(n_views=24, n_points=96, visibility=0.9, seed=0)
-        small = data.to_scene_graph(caps=(32, 256, 4 * CHUNK))
-        with pytest.raises(ValueError, match="span<=2"):
-            check_table_shard_contract(small.graph.pt_window, 4, small.graph.edge_mask)
-
     def test_sharded_grads_match_single_device(self):
         from jax.sharding import PartitionSpec as P
 
-        from gasfm_tpu.ops import segment as seg
-        from gasfm_tpu.ops.segment import edge_partitioned, table_sharded
-        from gasfm_tpu.parallel import (
+        from gasfm.ops.segment import edge_partitioned, table_sharded
+        from gasfm.parallel import (
             EDGE_AXIS,
             compute_owned_points,
             make_mesh,
@@ -819,96 +634,29 @@ class TestTableSharding:
 
         conf, model, scene = self._conf_model_scene()
         loss_func = get_loss_func(conf)
-        seg.set_kernel_mode("interpret")
-        try:
-            params = model.init(jax.random.PRNGKey(0), scene.graph)
+        params = model.init(jax.random.PRNGKey(0), scene.graph)
 
-            def loss_fn(p, sc):
-                return loss_func(model.apply(p, sc.graph), sc)
+        def loss_fn(p, sc):
+            return loss_func(model.apply(p, sc.graph), sc)
 
-            l_ref, g_ref = jax.value_and_grad(loss_fn)(params, scene)
+        mesh = make_mesh(n_edge=4, n_data=1)
 
-            mesh = make_mesh(n_edge=4, n_data=1)
+        def per_device(p, sc):
+            sc = jax.tree_util.tree_map(lambda x: x[0], sc)
+            with edge_partitioned(EDGE_AXIS), table_sharded(
+                compute_owned_points(sc.graph, EDGE_AXIS)
+            ):
+                loss, grads = jax.value_and_grad(loss_fn)(p, sc)
+            return loss, jax.lax.psum(grads, EDGE_AXIS)
 
-            def per_device(p, sc):
-                sc = jax.tree_util.tree_map(lambda x: x[0], sc)
-                with edge_partitioned(EDGE_AXIS), table_sharded(
-                    compute_owned_points(sc.graph, EDGE_AXIS)
-                ):
-                    loss, grads = jax.value_and_grad(loss_fn)(p, sc)
-                return loss, jax.lax.psum(grads, EDGE_AXIS)
-
-            sharded = jax.shard_map(
-                per_device, mesh=mesh,
-                in_specs=(P(), scene_graph_specs(batched=True)),
-                out_specs=(P(), P()), check_vma=False,
-            )
-            l_sh, g_sh = jax.jit(sharded)(params, stack_scene_graphs([scene]))
-        finally:
-            seg.set_kernel_mode("auto")
-
-        assert float(l_sh) == pytest.approx(float(l_ref), rel=1e-5)
-        for (path, a), b in zip(
-            jax.tree_util.tree_leaves_with_path(g_ref),
-            jax.tree_util.tree_leaves(g_sh),
-        ):
-            a, b = np.asarray(a), np.asarray(b)
-            scale = max(np.abs(a).max(), 1e-2)
-            np.testing.assert_allclose(
-                b, a, atol=2e-5 * scale, rtol=1e-3,
-                err_msg=f"grad mismatch at {jax.tree_util.keystr(path)}",
-            )
-
-    def test_single_direction_fused_exchange_matches_single_device(self, monkeypatch):
-        """The SINGLE-direction fused attention (gatv2_attend ->
-        fused_attend_h) under table sharding: until round 5 its cache key
-        dropped is_table_sharded(), so the boundary-exchange branch in
-        make_fused_attend was unreachable and the windowed direction always
-        paid the full-table combine. With GASFM_DUAL=0 forcing the
-        two-single-calls fallback, the full model's sharded loss and every
-        gradient leaf must still match single-device execution — now through
-        the exchange branch."""
-        from jax.sharding import PartitionSpec as P
-
-        from gasfm_tpu.ops import segment as seg
-        from gasfm_tpu.ops.segment import edge_partitioned, table_sharded
-        from gasfm_tpu.parallel import (
-            EDGE_AXIS,
-            compute_owned_points,
-            make_mesh,
-            scene_graph_specs,
+        sharded = jax.shard_map(
+            per_device, mesh=mesh,
+            in_specs=(P(), scene_graph_specs(batched=True)),
+            out_specs=(P(), P()), check_vma=False,
         )
-
-        monkeypatch.setenv("GASFM_DUAL", "0")
-        conf, model, scene = self._conf_model_scene()
-        loss_func = get_loss_func(conf)
-        seg.set_kernel_mode("interpret")
-        try:
-            params = model.init(jax.random.PRNGKey(0), scene.graph)
-
-            def loss_fn(p, sc):
-                return loss_func(model.apply(p, sc.graph), sc)
-
+        with float64(params, scene) as (params, scene):
             l_ref, g_ref = jax.value_and_grad(loss_fn)(params, scene)
-
-            mesh = make_mesh(n_edge=4, n_data=1)
-
-            def per_device(p, sc):
-                sc = jax.tree_util.tree_map(lambda x: x[0], sc)
-                with edge_partitioned(EDGE_AXIS), table_sharded(
-                    compute_owned_points(sc.graph, EDGE_AXIS)
-                ):
-                    loss, grads = jax.value_and_grad(loss_fn)(p, sc)
-                return loss, jax.lax.psum(grads, EDGE_AXIS)
-
-            sharded = jax.shard_map(
-                per_device, mesh=mesh,
-                in_specs=(P(), scene_graph_specs(batched=True)),
-                out_specs=(P(), P()), check_vma=False,
-            )
             l_sh, g_sh = jax.jit(sharded)(params, stack_scene_graphs([scene]))
-        finally:
-            seg.set_kernel_mode("auto")
 
         assert float(l_sh) == pytest.approx(float(l_ref), rel=1e-5)
         for (path, a), b in zip(
@@ -916,6 +664,7 @@ class TestTableSharding:
             jax.tree_util.tree_leaves(g_sh),
         ):
             a, b = np.asarray(a), np.asarray(b)
+            assert a.dtype == b.dtype == np.float64
             scale = max(np.abs(a).max(), 1e-2)
             np.testing.assert_allclose(
                 b, a, atol=2e-5 * scale, rtol=1e-3,
@@ -923,19 +672,14 @@ class TestTableSharding:
             )
 
     def test_production_forward_combines_tables(self):
-        from gasfm_tpu.ops import segment as seg
-        from gasfm_tpu.parallel import make_mesh, make_sharded_forward
+        from gasfm.parallel import make_mesh, make_sharded_forward
 
         conf, model, scene = self._conf_model_scene()
-        seg.set_kernel_mode("interpret")
-        try:
-            params = model.init(jax.random.PRNGKey(0), scene.graph)
-            mesh = make_mesh(n_edge=4, n_data=1)
-            fwd = make_sharded_forward(conf, model, mesh)
-            pred_sh = fwd(params, stack_scene_graphs([scene]))
-            pred_ref = model.apply(params, scene.graph)
-        finally:
-            seg.set_kernel_mode("auto")
+        params = model.init(jax.random.PRNGKey(0), scene.graph)
+        mesh = make_mesh(n_edge=4, n_data=1)
+        fwd = make_sharded_forward(conf, model, mesh)
+        pred_sh = fwd(params, stack_scene_graphs([scene]))
+        pred_ref = model.apply(params, scene.graph)
         np.testing.assert_allclose(
             np.asarray(pred_sh["Ps_norm"]), np.asarray(pred_ref["Ps_norm"]), atol=1e-5
         )

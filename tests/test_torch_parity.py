@@ -20,10 +20,10 @@ import torch.nn.functional as F
 import jax
 import jax.numpy as jnp
 
-from gasfm_tpu.config import ConfigFactory
-from gasfm_tpu.data.synthetic import generate_synthetic_scene
-from gasfm_tpu.losses import ESFMLoss
-from gasfm_tpu.models.layers import GATv2SegmentConv, MLPStack
+from gasfm.config import ConfigFactory
+from gasfm.data.synthetic import generate_synthetic_scene
+from gasfm.losses import ESFMLoss
+from gasfm.models.layers import GATv2SegmentConv, MLPStack
 
 torch.set_default_dtype(torch.float64)
 

@@ -8,9 +8,9 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from gasfm_tpu.config import ConfigFactory
-from gasfm_tpu.train.schedules import build_lr_schedule
-from gasfm_tpu.train.state import (
+from gasfm.config import ConfigFactory
+from gasfm.train.schedules import build_lr_schedule
+from gasfm.train.state import (
     TrainState,
     create_train_state,
     load_params,
@@ -132,17 +132,17 @@ class TestCheckpointing:
 class TestTrainLoopResume:
     def test_checkpoint_resume_continues_training(self, tmp_path, monkeypatch):
         monkeypatch.setenv("GASFM_RESULTS_PATH", str(tmp_path))
-        import gasfm_tpu.utils.observability as obs
+        import gasfm.utils.observability as obs
 
         obs.reset_tb_writer()
         import os
 
-        from gasfm_tpu.config import load_config
-        from gasfm_tpu.data.dataset import SceneLoader, ScenesDataSet
-        from gasfm_tpu.data.loaders import create_scene_data
-        from gasfm_tpu.models import get_model
-        from gasfm_tpu.train.loop import train
-        from gasfm_tpu.utils.phases import Phases
+        from gasfm.config import load_config
+        from gasfm.data.dataset import SceneLoader, ScenesDataSet
+        from gasfm.data.loaders import create_scene_data
+        from gasfm.models import get_model
+        from gasfm.train.loop import train
+        from gasfm.utils.phases import Phases
 
         conf = load_config(os.path.join("synth", "optim_synth_dpesfm.conf"))
         conf.put("exp_dir", "resume_test")
@@ -182,7 +182,7 @@ class TestTrainLoopResume:
         # the post-warmup epoch count, silently restarting the
         # view-increment curriculum and TB step indices while the restored
         # LR schedule continued at its old position.
-        from gasfm_tpu.train.state import TrainState, restore_checkpoint
+        from gasfm.train.state import TrainState, restore_checkpoint
 
         template = TrainState(
             params=params,
@@ -214,12 +214,12 @@ class TestDepthOnlyValidationMetricFailFast:
 
         import pytest as _pytest
 
-        from gasfm_tpu.config import load_config
-        from gasfm_tpu.data.dataset import SceneLoader, ScenesDataSet
-        from gasfm_tpu.data.loaders import create_scene_data
-        from gasfm_tpu.models import get_model
-        from gasfm_tpu.train.loop import train
-        from gasfm_tpu.utils.phases import Phases
+        from gasfm.config import load_config
+        from gasfm.data.dataset import SceneLoader, ScenesDataSet
+        from gasfm.data.loaders import create_scene_data
+        from gasfm.models import get_model
+        from gasfm.train.loop import train
+        from gasfm.utils.phases import Phases
 
         conf = load_config(os.path.join("synth", "optim_synth_depth_gasfm.conf"))
         conf.put("exp_dir", "depth_failfast_test")
@@ -245,8 +245,8 @@ class TestScheduleAdvanceOnSkippedBatch:
         correction stays at its first step."""
         import optax
 
-        from gasfm_tpu.config import ConfigFactory
-        from gasfm_tpu.train.state import advance_schedule_count, build_optimizer
+        from gasfm.config import ConfigFactory
+        from gasfm.train.state import advance_schedule_count, build_optimizer
 
         conf = ConfigFactory.parse_string("""
 train { lr = 0.001,
@@ -271,18 +271,18 @@ train { lr = 0.001,
 
         import optax
 
-        from gasfm_tpu.config import load_config
-        from gasfm_tpu.data.dataset import SceneLoader, ScenesDataSet
-        from gasfm_tpu.data.synthetic import generate_synthetic_scene
-        from gasfm_tpu.models import get_model
-        from gasfm_tpu.train.loop import TrainingSession, epoch_train
-        from gasfm_tpu.utils.phases import Phases
+        from gasfm.config import load_config
+        from gasfm.data.dataset import SceneLoader, ScenesDataSet
+        from gasfm.data.synthetic import generate_synthetic_scene
+        from gasfm.models import get_model
+        from gasfm.train.loop import TrainingSession, epoch_train
+        from gasfm.utils.phases import Phases
 
         conf = load_config(os.path.join("synth", "learning_synth_gasfm.conf"))
         conf.put("exp_dir", "sched_adv_test")
         # A scene that fails is_valid_sample: zero out view 0's observations
         # so it sees < 8 points (MIN_N_POINTS_PER_VIEW).
-        from gasfm_tpu.data.scene import SceneData
+        from gasfm.data.scene import SceneData
 
         src = generate_synthetic_scene(n_views=8, n_points=64, seed=0)
         M = np.array(src.M)
@@ -293,7 +293,7 @@ train { lr = 0.001,
         session = TrainingSession(conf, model)
         good = generate_synthetic_scene(n_views=8, n_points=64, seed=1)
         graph = session.bucketize(good).graph
-        params = jax.jit(model.init)(jax.random.PRNGKey(0), graph)
+        params = model.init(jax.random.PRNGKey(0), graph)
         opt_state = session.tx.init(params)
 
         loader = SceneLoader(ScenesDataSet([bad], return_all=True), batch_size=1, prefetch=0)
@@ -323,8 +323,8 @@ class TestProfilerWindow:
         preference to the default, which used to TypeError inside
         maybe_stop (`start + None`) mid-run. Null must behave as the
         1-epoch default."""
-        from gasfm_tpu.config import ConfigFactory
-        from gasfm_tpu.utils.observability import ProfilerWindow
+        from gasfm.config import ConfigFactory
+        from gasfm.utils.observability import ProfilerWindow
 
         monkeypatch.setenv("GASFM_RESULTS_PATH", str(tmp_path))
         conf = ConfigFactory.parse_string(
@@ -345,22 +345,21 @@ class TestProfilerWindow:
     def test_profile_window_writes_trace(self, tmp_path, monkeypatch):
         """observability.profile_start_epoch captures a jax.profiler trace of
         the configured epoch window into <tb_events>/profile (SURVEY section 5:
-        the TPU-native replacement for the reference's wall-clock-only
-        timing)."""
+        beyond the reference's wall-clock-only timing)."""
         monkeypatch.setenv("GASFM_RESULTS_PATH", str(tmp_path))
-        import gasfm_tpu.utils.observability as obs
+        import gasfm.utils.observability as obs
 
         obs.reset_tb_writer()
         import glob
         import os
 
-        from gasfm_tpu.config import load_config
-        from gasfm_tpu.data.dataset import SceneLoader, ScenesDataSet
-        from gasfm_tpu.data.loaders import create_scene_data
-        from gasfm_tpu.models import get_model
-        from gasfm_tpu.train.loop import train
-        from gasfm_tpu.utils import paths
-        from gasfm_tpu.utils.phases import Phases
+        from gasfm.config import load_config
+        from gasfm.data.dataset import SceneLoader, ScenesDataSet
+        from gasfm.data.loaders import create_scene_data
+        from gasfm.models import get_model
+        from gasfm.train.loop import train
+        from gasfm.utils import paths
+        from gasfm.utils.phases import Phases
 
         conf = load_config(os.path.join("synth", "optim_synth_dpesfm.conf"))
         conf.put("exp_dir", "profile_test")
@@ -395,7 +394,7 @@ class TestAdamNuDtype:
     def test_f32_clone_bit_matches_optax_adam(self):
         import optax
 
-        from gasfm_tpu.train.state import _scale_by_adam_cast, build_optimizer
+        from gasfm.train.state import _scale_by_adam_cast, build_optimizer
 
         params = {"a": jnp.arange(12.0).reshape(3, 4) / 7.0, "b": jnp.ones((5,))}
         g = {"a": jnp.cos(params["a"]), "b": -0.3 * jnp.ones((5,))}
@@ -416,7 +415,7 @@ class TestAdamNuDtype:
         assert st[0].nu["a"].dtype == jnp.bfloat16
 
     def test_bf16_nu_tracks_f32(self):
-        from gasfm_tpu.train.state import _scale_by_adam_cast
+        from gasfm.train.state import _scale_by_adam_cast
 
         params = {"a": jnp.arange(12.0).reshape(3, 4) / 7.0}
         g = {"a": jnp.cos(params["a"])}
@@ -444,7 +443,7 @@ class TestMixedPrecisionParams:
     def test_params_land_on_bf16_master(self):
         import optax
 
-        from gasfm_tpu.train.state import (
+        from gasfm.train.state import (
             apply_param_updates,
             build_optimizer,
             cast_params_for_training,
@@ -480,10 +479,10 @@ class TestMixedPrecisionParams:
         assert rel < 0.01
 
     def test_full_model_step_runs_bf16(self):
-        from gasfm_tpu.data.synthetic import generate_synthetic_scene
-        from gasfm_tpu.losses import get_loss_func
-        from gasfm_tpu.models import get_model
-        from gasfm_tpu.train.state import (
+        from gasfm.data.synthetic import generate_synthetic_scene
+        from gasfm.losses import get_loss_func
+        from gasfm.models import get_model
+        from gasfm.train.state import (
             apply_param_updates,
             build_optimizer,
             cast_params_for_training,

@@ -9,7 +9,9 @@ import xml.etree.ElementTree as ET
 import numpy as np
 import pandas as pd
 
-from gasfm_tpu.utils.xlsx import write_xlsx
+from gasfm.utils.xlsx import write_xlsx
+
+_COLS = ["Scene", "repro", "note"]
 
 
 def _sheet_rows(path):
@@ -34,12 +36,9 @@ def _sheet_rows(path):
 
 
 def test_write_xlsx_cells(tmp_path):
-    df = pd.DataFrame(
-        {"repro": [1.5, np.nan, 3.0], "note": ["a", "x<y&z", "ok"]},
-        index=pd.Index(["s1", "s2", "Mean"], name="Scene"),
-    )
+    rows = [["s1", 1.5, "a"], ["s2", np.nan, "x<y&z"], ["Mean", 3.0, "ok"]]
     path = tmp_path / "t.xlsx"
-    write_xlsx(str(path), df)
+    write_xlsx(str(path), _COLS, rows)
     rows = _sheet_rows(path)
     assert rows[0] == {"A1": "Scene", "B1": "repro", "C1": "note"}
     assert rows[1]["A2"] == "s1" and rows[1]["B2"] == 1.5 and rows[1]["C2"] == "a"
@@ -49,13 +48,12 @@ def test_write_xlsx_cells(tmp_path):
 
 
 def test_write_results_emits_both(tmp_path, monkeypatch):
-    from gasfm_tpu.config import ConfigFactory
-    from gasfm_tpu.utils.observability import write_results
+    from gasfm.config import ConfigFactory
+    from gasfm.utils.observability import write_results
 
     monkeypatch.setenv("GASFM_RESULTS_PATH", str(tmp_path))
     conf = ConfigFactory.parse_string('exp_dir = "x"')
-    df = pd.DataFrame({"v": [1.0, 2.0]}, index=pd.Index(["a", "b"], name="Scene"))
-    write_results(conf, df, file_name="Res")
+    write_results(conf, [{"Scene": "a", "v": 1.0}, {"Scene": "b", "v": 2.0}], file_name="Res")
     import os
 
     exp = None
@@ -73,12 +71,8 @@ def test_write_xlsx_infinities_as_inline_strings(tmp_path):
     """float('inf') must not land in a numeric <v> cell ('<v>inf</v>' is
     invalid OOXML — Excel/openpyxl report the file corrupt); it is written
     as an inline string like pandas' to_excel does."""
-    df = pd.DataFrame(
-        {"metric": [np.inf, -np.inf, 2.0]},
-        index=pd.Index(["a", "b", "c"], name="Scene"),
-    )
     path = str(tmp_path / "inf.xlsx")
-    write_xlsx(path, df)
+    write_xlsx(path, ["Scene", "metric"], [["a", np.inf], ["b", -np.inf], ["c", 2.0]])
     rows = _sheet_rows(path)
     assert rows[1]["B2"] == "inf"
     assert rows[2]["B3"] == "-inf"

@@ -13,7 +13,7 @@ dependency:
 
 Module and parameter NAMING matches the reference exactly, so
 ``oracle.state_dict()`` has the same keys as a reference training
-checkpoint — the converter (gasfm_tpu/models/convert.py) is therefore
+checkpoint — the converter (gasfm/models/convert.py) is therefore
 usable both for these oracles and for real published weights.
 
 The graph input is an edge list in torch-COO *coalesced* (row-major:
